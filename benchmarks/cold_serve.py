@@ -1,7 +1,7 @@
 """Cold-start story: fresh process -> first real encrypted match.
 
-VERDICT r4 weak #4 asked for a measured "cold serve-to-first-match" figure
-an operator can plan around.  This script runs ONE fresh-process scenario
+A measured "cold serve-to-first-match" figure an operator can plan
+around.  This script runs ONE fresh-process scenario
 per invocation (the cold cost is per-process, so scenarios cannot share a
 process):
 
@@ -11,9 +11,9 @@ process):
                                            # first, then time the match
 
 Reports JSON with the process-start -> result timeline.  Run each with a
-warm persistent compile cache (.cache/jax, the operating default) —
-truly-cold XLA-compile figures (225-770 s) are recorded in
-docs/BENCHMARKS.md.  Uses the north-star config /^a[b-d]{2,4}e$/i with
+warm persistent compile cache (utils/compile_cache.py, the operating
+default), or with an empty one for the truly-cold figure.  Uses the
+north-star config /^a[b-d]{2,4}e$/i with
 REAL client encryption.
 """
 
@@ -27,9 +27,8 @@ from pathlib import Path
 
 T0 = time.time()                      # process epoch for the timeline
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(Path(__file__).resolve().parents[1]
-                          / ".cache" / "jax"))
+from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 
 PATTERN = "/^a[b-d]{2,4}e$/i"
 CONTENT = "acdde"                     # match = 1 (Q1: [b-d] excludes 'b')
@@ -39,11 +38,9 @@ def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else "direct"
     from bench import _get_keys
     from fhe_regex_tpu import decrypt, encrypt_str
-    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2, TEST_PARAMS
-    import jax
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS
+    params = TPU_MESSAGE_2_CARRY_2
     ck, sk = _get_keys(params)
     t_keys = time.time() - T0
 

@@ -23,22 +23,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1]
-                              / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np  # noqa: F401
     from bench import _get_keys
     from fhe_regex_tpu import (count_matches, decrypt_count, encrypt_str,
                                trivial_encrypt_str)
-    from fhe_regex_tpu.params import TEST_PARAMS, TPU_MESSAGE_2_CARRY_2
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS
+    params = TPU_MESSAGE_2_CARRY_2
     if "COUNT_PARAMS" in os.environ:
         from fhe_regex_tpu.params import get_params
         params = get_params(os.environ["COUNT_PARAMS"])
-    L = int(os.environ.get("COUNT_LEN", "32" if on_tpu else "8"))
+    L = int(os.environ.get("COUNT_LEN", "32"))
     pattern = os.environ.get("COUNT_PATTERN", "/abc?/")
     ck, sk = _get_keys(params)
 

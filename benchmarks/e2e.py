@@ -1,10 +1,9 @@
-"""End-to-end encrypted-match latency over the 5 driver configs
-(BASELINE.json "configs"), on whatever platform JAX finds.
+"""End-to-end encrypted-match latency over the 5 BASELINE.json configs,
+on whatever platform JAX finds.
 
 Usage:  python benchmarks/e2e.py [--params NAME] [--fold tree|reference]
-Writes one JSON line per config; intended for BENCH_r*.json-style records
-and round-over-round tracking (the headline bench.py metric stays
-bootstraps/s/chip).
+Writes one JSON line per config, each result checked against the plaintext
+dialect oracle (the headline bench.py metric stays bootstraps/s/chip).
 """
 
 from __future__ import annotations
@@ -20,8 +19,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--params", default=None)
     ap.add_argument("--fold", default="tree")
@@ -31,47 +30,28 @@ def main():
     ap.add_argument("--repeat", type=int, default=0,
                     help="extra warm runs per config (reports warm min)")
     args = ap.parse_args()
-
-    import jax
     import numpy as np
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match, get_params,
                                trivial_encrypt_str)
-    from fhe_regex_tpu.models.patterns import DRIVER_CONFIGS
+    from fhe_regex_tpu.models.patterns import (BASELINE_CONFIGS,
+                                               BASELINE_CONTENTS, NORTH_STAR)
+    from fhe_regex_tpu.regex.oracle import oracle_match
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = get_params(args.params or
-                        ("TPU_MESSAGE_2_CARRY_2" if on_tpu else "TEST_PARAMS"))
+    params = get_params(args.params or "TPU_MESSAGE_2_CARRY_2")
     ck, sk = _get_keys(params)
 
-    # contents chosen so configs 1,3 match and the rest don't (both paths hit)
-    # note the dialect quirks: [a-d] has an exclusive lower bound (Q1) so
-    # 'b' is the smallest match, and a trailing e? epsilon-variant at
-    # end-of-content is pruned (engine.rs:69-71), so content must end 'e'
-    contents = {
-        "exact_literal": "abc",
-        "contains_anchors": "xxxxxabcxxxxxxxx",
-        "case_insensitive_classes": "bq",
-        "quantifiers": "xabbcccdddddxxxxxxxxxxxxxxxxxxxx",
-        "alternation_combo": "cdqrstuv" + "x" * 55 + "e",
-    }
-    expected = {"exact_literal": 1, "contains_anchors": 1,
-                "case_insensitive_classes": 1, "quantifiers": 0,
-                "alternation_combo": 1}
-
-    configs = DRIVER_CONFIGS + [
-        # BASELINE.json north-star: /^a[b-d]{2,4}e$/i over 64 encrypted chars
-        # (fully anchored, so no 64-char content can match: expected 0 — the
-        # bit-exactness claim is that we agree with the reference on that)
-        {"name": "north_star_64", "pattern": "/^a[b-d]{2,4}e$/i", "content_len": 64},
-        # and the same pattern on content it CAN match ([b-d] excludes 'b'
-        # by Q1, so the repeats must be c/d)
-        {"name": "north_star_hit", "pattern": "/^a[b-d]{2,4}e$/i", "content_len": 5},
+    contents = dict(BASELINE_CONTENTS)
+    configs = BASELINE_CONFIGS + [
+        NORTH_STAR,
+        # the north-star pattern on content it CAN match ([b-d] excludes
+        # 'b' by Q1, so the repeats must be c/d)
+        {"name": "north_star_hit", "pattern": NORTH_STAR["pattern"],
+         "content_len": 5},
     ]
-    contents["north_star_64"] = "a" + "c" * 62 + "e"
     contents["north_star_hit"] = "Acdde"
-    expected["north_star_64"] = 0
-    expected["north_star_hit"] = 1
+    expected = {c["name"]: oracle_match(contents[c["name"]], c["pattern"])
+                for c in configs}
 
     for cfg in configs:
         name = cfg["name"]

@@ -21,19 +21,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match,
                                has_match_long, get_params,
                                trivial_encrypt_str)
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
     params = get_params(os.environ.get(
-        "LONG_PARAMS", "TPU_MESSAGE_2_CARRY_2" if on_tpu else "TEST_PARAMS"))
-    L = int(os.environ.get("LONG_LEN", "256" if on_tpu else "64"))
-    W = int(os.environ.get("LONG_WINDOW", "64" if on_tpu else "16"))
+        "LONG_PARAMS", "TPU_MESSAGE_2_CARRY_2"))
+    L = int(os.environ.get("LONG_LEN", "256"))
+    W = int(os.environ.get("LONG_WINDOW", "64"))
     pattern = os.environ.get("LONG_PATTERN", "/abc/")
     ck, sk = _get_keys(params)
 

@@ -28,23 +28,21 @@ RULESET = ["/abc/", "/abd/", "/ab/", "/bcd/", "/a.c/", "/ab|cd/",
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match_many,
                                has_match_many_patterns,
                                trivial_encrypt_str, _compile_multi)
     from fhe_regex_tpu.regex.engine import compile_match
-    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2, TEST_PARAMS
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS
+    params = TPU_MESSAGE_2_CARRY_2
     if "MP_PARAMS" in os.environ:        # e.g. TPU64_MESSAGE_2_CARRY_2
         from fhe_regex_tpu.params import get_params
         params = get_params(os.environ["MP_PARAMS"])
-    C = int(os.environ.get("SERVE_BATCH", "32" if on_tpu else "4"))
+    C = int(os.environ.get("SERVE_BATCH", "32"))
     L = int(os.environ.get("MP_LEN", "16"))
     P = len(RULESET)
     ck, sk = _get_keys(params)

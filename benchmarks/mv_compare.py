@@ -3,7 +3,7 @@
 Runs each driver config twice per mode (cold compile excluded) and reports
 rotations vs bootstraps and the warm-latency ratio.  The multi-value plan
 shares one blind rotation between same-input ops (20-43% of rotations on
-class/alternation patterns, docs/ROADMAP.md); identical decrypted bits.
+class/alternation patterns, tests/test_multivalue.py); identical decrypted bits.
 """
 
 from __future__ import annotations
@@ -18,17 +18,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match, get_params,
                                trivial_encrypt_str)
     from fhe_regex_tpu.regex.engine import compile_match
     from fhe_regex_tpu.regex.executor import compile_circuit, default_min_bucket
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = get_params("TPU_MESSAGE_2_CARRY_2" if on_tpu else "TEST_PARAMS")
+    params = get_params("TPU_MESSAGE_2_CARRY_2")
     ck, sk = _get_keys(params)
 
     cases = [

@@ -4,7 +4,7 @@ Batched contents vs one pattern, classic vs multivalue run_many.  Wide
 packed launches run at the kernel's large-batch throughput, where time is
 proportional to the ROTATION count — so the 20-43% rotation sharing on
 class/alternation patterns translates to real throughput (unlike the
-latency path, where fixed per-launch costs mask it; docs/BENCHMARKS.md).
+latency path, where fixed per-launch costs mask it).
 
 Env: SERVE_BATCH (contents, default 32), MV_PATTERN, MV_CONTENT,
 MV_FLIP_POS (position mutated to break the match on odd contents; default
@@ -24,9 +24,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match_many,
                                trivial_encrypt_str, get_params)
@@ -34,10 +33,9 @@ def main():
     from fhe_regex_tpu.regex.executor import compile_circuit
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
     params = get_params(os.environ.get(
-        "MV_PARAMS", "TPU_MESSAGE_2_CARRY_2" if on_tpu else "TEST_PARAMS"))
-    C = int(os.environ.get("SERVE_BATCH", "32" if on_tpu else "4"))
+        "MV_PARAMS", "TPU_MESSAGE_2_CARRY_2"))
+    C = int(os.environ.get("SERVE_BATCH", "32"))
     pattern = os.environ.get("MV_PATTERN", "/^(ab|cd)[a-z]{3,}e?$/i")
     base = os.environ.get("MV_CONTENT", "cdqrstuv" + "x" * 55 + "e")
     ck, sk = _get_keys(params)

@@ -30,19 +30,18 @@ def phase_error(params, key, ct, m):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
-    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2, TEST_PARAMS_NOISY
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
     from fhe_regex_tpu.crypto import lwe
     from fhe_regex_tpu.crypto.golden import make_lut_poly
     from fhe_regex_tpu.ops.pbs import make_pbs_fn, prepare_server_key
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS_NOISY
-    B = int(os.environ.get("NOISE_BATCH", "256" if on_tpu else "8"))
+    params = TPU_MESSAGE_2_CARRY_2
+    B = int(os.environ.get("NOISE_BATCH", "256"))
     rounds = int(os.environ.get("NOISE_ROUNDS", "4"))
 
     ck, sk = _get_keys(params)

@@ -10,7 +10,7 @@ end-to-end at the reference's exact 64-bit parameter point
 
 This is the strongest cross-implementation parity evidence obtainable
 without a Rust toolchain: content encrypted under the reference's secret
-key, bootstrapped through our TPU kernels, decrypted with the reference's
+key, bootstrapped through the device PBS, decrypted with the reference's
 secret key, compared against the reference's own expected outputs.
 
 Usage:  python benchmarks/refkey_vectors.py [--quick N] [--backend B]
@@ -30,8 +30,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", type=int, default=0,
                     help="run only the first N vectors")

@@ -18,22 +18,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2, TEST_PARAMS
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
     from fhe_regex_tpu.crypto import lwe
     from fhe_regex_tpu.crypto.golden import make_lut_poly
     from fhe_regex_tpu.ops.pbs import make_pbs_fn, prepare_server_key
     from fhe_regex_tpu.parallel.mesh import make_mesh, make_sharded_pbs_fn
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS
-    per_dev = int(os.environ.get("SCALE_BATCH_PER_DEV", "256" if on_tpu else "8"))
+    params = TPU_MESSAGE_2_CARRY_2
+    per_dev = int(os.environ.get("SCALE_BATCH_PER_DEV", "256"))
     iters = int(os.environ.get("SCALE_ITERS", "2"))
     n_dev = len(jax.devices())
 

@@ -17,18 +17,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          str(Path(__file__).resolve().parents[1] / ".cache" / "jax"))
-    import jax
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
     from fhe_regex_tpu import (decrypt, encrypt_str, has_match_many,
                                trivial_encrypt_str)
-    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2, TEST_PARAMS
+    from fhe_regex_tpu.params import TPU_MESSAGE_2_CARRY_2
     from bench import _get_keys
 
-    on_tpu = jax.default_backend() == "tpu"
-    params = TPU_MESSAGE_2_CARRY_2 if on_tpu else TEST_PARAMS
-    C = int(os.environ.get("SERVE_BATCH", "32" if on_tpu else "4"))
+    params = TPU_MESSAGE_2_CARRY_2
+    C = int(os.environ.get("SERVE_BATCH", "32"))
     pattern = os.environ.get("SERVE_PATTERN", "/abc/")
     ck, sk = _get_keys(params)
 

@@ -15,9 +15,11 @@ import sys
 
 
 def main(argv=None) -> int:
+    from fhe_regex_tpu.ops.pbs import BACKENDS
+
     ap = argparse.ArgumentParser(
         prog="fhe-regex-tpu",
-        description="Match a regex against encrypted content (TFHE on TPU).",
+        description="Match a regex against encrypted content (TFHE).",
     )
     ap.add_argument("content", help="plaintext content to encrypt and search")
     ap.add_argument("pattern", help="pattern, e.g. '/^ab?c$/i'")
@@ -26,10 +28,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trivial", action="store_true",
                     help="use noiseless trivial content encryption (fast test path)")
     ap.add_argument("--backend", default=None,
-                    choices=["jnp", "pallas", "pallas-fused", "jnp64",
-                             "pallas64"],
-                    help="PBS kernel backend (default: auto — pallas-fused "
-                         "on TPU, jnp on CPU; *64 for 64-bit parameter sets)")
+                    choices=sorted(BACKENDS),
+                    help="PBS formulation (default: the measured default "
+                         "of the parameter set's torus width)")
     ap.add_argument("--fold", default="reference", choices=["reference", "tree"],
                     help="OR-fold order: reference (counter parity) or tree "
                          "(log-depth, lower latency)")
@@ -70,6 +71,9 @@ def main(argv=None) -> int:
         decrypt, encrypt_str, gen_keys, get_params, has_match,
         trivial_encrypt_str,
     )
+    from fhe_regex_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     params = get_params(args.params)
     log.info("generating keys (%s)..", params.name)

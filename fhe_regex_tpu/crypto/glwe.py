@@ -1,6 +1,6 @@
 """GLWE/GGSW encryption and server-key material generation (NumPy, client-side).
 
-This is the TPU-native replacement for the key generation inside
+This is the replacement for the key generation inside
 ``tfhe::integer::gen_keys_radix`` (reference src/regex/ciphertext.rs:42-45;
 SURVEY.md N2): LWE secret key, GLWE secret key, GGSW bootstrap key (one GGSW
 per LWE secret bit) and the LWE keyswitch key (big kN key -> small n key).

@@ -1,6 +1,6 @@
 """Key structures, keygen, and serialization.
 
-TPU-native equivalent of ``gen_keys`` (reference src/regex/ciphertext.rs:42-45
+Equivalent of ``gen_keys`` (reference src/regex/ciphertext.rs:42-45
 -> tfhe ``gen_keys_radix``, SURVEY.md N2): returns a client key (secret; used
 host-side for encrypt/decrypt) and a server key (public evaluation material:
 bootstrap + keyswitch keys, shipped to device HBM).

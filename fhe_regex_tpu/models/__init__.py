@@ -2,5 +2,5 @@ from fhe_regex_tpu.models.patterns import (  # noqa: F401
     CompiledPattern,
     CompiledPatternSet,
     CompiledPositions,
-    DRIVER_CONFIGS,
+    BASELINE_CONFIGS,
 )

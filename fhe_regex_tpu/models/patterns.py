@@ -9,7 +9,7 @@ interpreter.  ``CompiledPattern`` caches circuits per content length;
 ``CompiledPositions`` (one root per start offset) override only the
 compile step.
 
-``DRIVER_CONFIGS`` enumerates the five benchmark configurations from
+``BASELINE_CONFIGS`` enumerates the five benchmark configurations from
 BASELINE.json.
 """
 
@@ -148,11 +148,30 @@ class CompiledPositions(CompiledPattern):
         return {"positions": content_len, **super().stats(content_len)}
 
 
-# The 5 driver benchmark configurations (BASELINE.json "configs")
-DRIVER_CONFIGS = [
+# The 5 benchmark configurations (BASELINE.json "configs")
+BASELINE_CONFIGS = [
     {"name": "exact_literal", "pattern": "/^abc$/", "content_len": 3},
     {"name": "contains_anchors", "pattern": "/abc/", "content_len": 16},
     {"name": "case_insensitive_classes", "pattern": "/^[a-d][^xyz]$/i", "content_len": 2},
     {"name": "quantifiers", "pattern": "/^ab{2,4}c+d*$/", "content_len": 32},
     {"name": "alternation_combo", "pattern": "/^(ab|cd)[a-z]{3,}e?$/i", "content_len": 64},
 ]
+
+# BASELINE.json's north star: /^a[b-d]{2,4}e$/i over 64 encrypted chars
+NORTH_STAR = {"name": "north_star_64", "pattern": "/^a[b-d]{2,4}e$/i",
+              "content_len": 64}
+
+# One content per configuration (length == content_len), chosen so both
+# outcomes occur.  Dialect quirks: [a-d] has an exclusive lower bound (Q1)
+# so 'b' is its smallest match, and a trailing e? epsilon-variant at end of
+# content is pruned (engine.rs:69-71), so a matching content must end 'e'.
+# The fully anchored north star cannot match any 64-char content.
+BASELINE_CONTENTS = {
+    "exact_literal": "abc",
+    "contains_anchors": "xxxxxabcxxxxxxxx",
+    "case_insensitive_classes": "bq",
+    "quantifiers": "xabbcccdddddxxxxxxxxxxxxxxxxxxxx",
+    "alternation_combo": "cdqrstuv" + "x" * 55 + "e",
+    "north_star_64": "a" + "c" * 62 + "e",
+}
+

@@ -9,15 +9,13 @@ sample-extract time as a cheap static-roll combination:
     big_j = sum_m  u_j[m] * sample_extract(X^{p_m} * acc_v)
 
 The support positions p_m are STATIC (window boundaries), so the combine is
-16 static negacyclic rolls + a weighted sum — pure VPU glue around the same
-rotation kernels and keyswitch matmuls the classic path uses.  No Pallas
-changes: the fused kernel already returns the accumulator
-(ops/pbs_pallas.py ``blind_rotate_fused``).
+16 static negacyclic rolls + a weighted sum — elementwise glue around the
+same blind rotations and keyswitch matmuls the classic path uses.
 
-Cost model: a rotation is ~78-83% of PBS kernel time (docs/BENCHMARKS.md),
-so a level with R unique inputs among W ops does R/W of the rotation work.
-Compiled regex circuits measure 20-43% shared rotations on class/alternation
-patterns (docs/ROADMAP.md).
+Cost model: the blind rotation is nearly all of a bootstrap's work, so a
+level with R unique inputs among W ops does R/W of the rotation work.
+Compiled regex circuits share 20-43% of their rotations on
+class/alternation patterns (tests/test_multivalue.py).
 
 Noise: derived outputs amplify the blind-rotation noise component by
 ||u||_2^2 <= 12 (production LUTs); keyswitch + modswitch dominate at our
@@ -38,7 +36,9 @@ from fhe_regex_tpu.ops.luts import mv_support_positions
 from fhe_regex_tpu.ops.pbs import (
     DeviceServerKey,
     blind_rotate,
+    blind_rotate_int8,
     key_switch,
+    key_switch_limbs,
     mod_switch,
     sample_extract,
 )
@@ -46,8 +46,7 @@ from fhe_regex_tpu.params import Params
 
 I32 = jnp.int32
 
-MV_BACKENDS = ("jnp", "pallas", "pallas-fused", "jnp64", "pallas64",
-               "pallas64-bg")
+MV_BACKENDS = ("jnp", "int8", "jnp64")
 
 
 def mv_lut_table(params: Params) -> np.ndarray:
@@ -67,69 +66,34 @@ def _rotate_acc(dev_key: DeviceServerKey, key, vlut, cts):
     """Backend dispatch: affine-combined cts -> accumulators.
 
     32-bit: cts [R, n+1] -> [R, k+1, N]; 64-bit: cts [R, n+1, 2] limb
-    pairs -> (acc_lo, acc_hi) each [R, k+1, N]."""
+    pairs -> [R, k+1, N, 2]."""
     params = dev_key.params
     backend = dev_key.backend
     idx = jnp.zeros(cts.shape[0], I32)
-    if backend in ("jnp64", "pallas64", "pallas64-bg"):
+    if backend == "jnp64":
         from fhe_regex_tpu.ops import pbs64 as p64
         ms = p64.mod_switch64(params, cts[..., 0], cts[..., 1])
-        if backend == "jnp64":
-            lo, hi = p64.blind_rotate64(params, key[0], vlut[..., 0],
-                                        vlut[..., 1], idx, ms)
-        elif backend == "pallas64-bg":
-            import os
-            from fhe_regex_tpu.ops.pbs_pallas import blind_rotate_fused64_bg
-            # Honor the documented batch-grid block knob here too (ADVICE
-            # r4: it previously only applied via make_pbs_fn/make_pbs_core).
-            # The knob's divide-B contract is stated for the main launch
-            # width; mv rotation batches R differ, so a non-dividing value
-            # falls back to the auto block instead of erroring.
-            env_tb = os.environ.get("FHE_REGEX_BG64_TB")
-            tb = int(env_tb) if env_tb else None
-            if tb is not None and (cts.shape[0] % tb != 0 or tb % 8 != 0):
-                tb = None
-            from fhe_regex_tpu.ops.pbs import bg_interleave_default
-            lo, hi = blind_rotate_fused64_bg(
-                params, key[0], vlut[..., 0], vlut[..., 1], idx, ms,
-                getattr(dev_key, "drop64", (0, 0)), tb=tb,
-                interleave=bg_interleave_default(64))
-        else:
-            from fhe_regex_tpu.ops.pbs_pallas import blind_rotate_fused64
-            lo, hi = blind_rotate_fused64(params, key[0], vlut[..., 0],
-                                          vlut[..., 1], idx, ms,
-                                          getattr(dev_key, "stack_rows",
-                                                  False))
+        lo, hi = p64.blind_rotate64(params, key[0], vlut[..., 0],
+                                    vlut[..., 1], idx, ms)
         return jnp.stack([lo, hi], axis=-1)       # [R, k+1, N, 2]
     cts_ms = mod_switch(params, cts)
     if backend == "jnp":
         return blind_rotate(params, key[0], vlut, idx, cts_ms)
-    if backend == "pallas":
-        from fhe_regex_tpu.ops.pbs_pallas import blind_rotate_pallas
-        return blind_rotate_pallas(params, key[0], vlut, idx, cts_ms,
-                                   dev_key.matmul_dtype,
-                                   getattr(dev_key, "limbs", (0, 1, 2, 3)))
-    if backend == "pallas-fused":
-        from fhe_regex_tpu.ops.pbs_pallas import blind_rotate_fused
-        return blind_rotate_fused(params, key[0], vlut, idx, cts_ms,
-                                  dev_key.matmul_dtype,
-                                  getattr(dev_key, "limbs", (0, 1, 2, 3)),
-                                  getattr(dev_key, "stack_rows", False),
-                                  getattr(dev_key, "bank_split", False))
+    if backend == "int8":
+        return blind_rotate_int8(params, key[0], vlut, idx, cts_ms)
     raise ValueError(f"multi-value bootstrap not supported on {backend!r}")
 
 
 def _key_switch(dev_key: DeviceServerKey, key, big):
     params = dev_key.params
-    if dev_key.backend in ("jnp64", "pallas64", "pallas64-bg"):
+    if dev_key.backend == "jnp64":
         from fhe_regex_tpu.ops.pbs64 import key_switch64
         out_lo, out_hi = key_switch64(params, key[1], big[..., 0],
                                       big[..., 1])
         return jnp.stack([out_lo, out_hi], axis=-1)
     if dev_key.backend == "jnp":
         return key_switch(params, key[1], big)
-    from fhe_regex_tpu.ops.pbs_pallas import key_switch_mxu
-    return key_switch_mxu(params, key[1], big)
+    return key_switch_limbs(params, key[1], big)
 
 
 def mv_extract(params: Params, accs, weights, leader, positions=None):

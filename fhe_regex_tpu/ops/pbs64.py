@@ -1,11 +1,11 @@
 """64-bit-torus device PBS — the reference's torus width (SURVEY.md N1, N9).
 
-TPUs have no native 64-bit integer datapath, so torus values live on device
-as two int32 limb arrays ``(lo, hi)`` (bits 0-31 / 32-63) with explicit
-carry arithmetic; all adds/negations are exact mod 2^64.
+Torus values live on device as two int32 limb arrays ``(lo, hi)`` (bits
+0-31 / 32-63) with explicit carry arithmetic, so no process-wide
+``jax_enable_x64`` is needed; all adds/negations are exact mod 2^64.
 
 The external product uses the same limb-matmul formulation as the 32-bit
-Pallas kernel (ops/pbs_pallas.py): GGSW polynomials are split host-side into
+int8 route (ops/pbs.py blind_rotate_int8): GGSW polynomials are split host-side into
 EIGHT signed 8-bit limbs *after* doubling to (g, -g mod 2^64) — negation is
 applied on the torus value before the limb split, so device code never
 negates an int8 limb (-128 would overflow).  Gadget digits (|d| < 2^22 at
@@ -15,9 +15,9 @@ accumulation (exact: |products| <= 2^14, row sums <= 2^25), and the 24
 partials recombine at weights 2^{8(i+j)} into (lo, hi) with carry-correct
 shifts — exact arithmetic mod 2^64 by construction.
 
-This is the correct-everywhere jnp path (used at small/test parameters and
-for parity validation); a fused Pallas kernel for full-parameter 64-bit
-throughput can reuse the identical limb algebra.
+This is the 64-bit width's only route (``jnp64``), at every parameter
+set; a fused kernel for full-parameter 64-bit throughput can reuse the
+identical limb algebra.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Replaces the reference's sequential ct_or left-fold over branch results
 (engine.rs:22-35) when running sharded: each device OR-folds its local branch
 bits (log-depth inside the batched circuit), then log2(D) rounds of
 ``ppermute`` + one homomorphic OR (a single bootstrap per device per round)
-combine partial results across the mesh over ICI.
+combine partial results across the mesh.
 
 The decrypted result is identical to the reference's fold — OR is
 associative and every op re-encrypts through a bootstrap — only the op

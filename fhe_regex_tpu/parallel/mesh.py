@@ -2,11 +2,13 @@
 
 The reference is strictly single-threaded at the application layer
 (SURVEY.md §2.3: Rc-based closures, sequential OR-fold) — its only
-parallelism is rayon inside one op.  The TPU-native replacement is SPMD over
+parallelism is rayon inside one op.  The replacement here is SPMD over
 a ``jax.sharding.Mesh``: the PBS **batch axis** (all bootstrap instances of a
-circuit level = variants x positions x blocks) is sharded across chips with
-``shard_map``; server-key material is replicated; XLA compiles the collective
-movement onto ICI.
+circuit level = variants x positions x blocks) is sharded across devices
+with ``shard_map``; server-key material is replicated; XLA compiles the
+collective movement onto the device interconnect (NVLink within a host).
+The mesh is one flat batch axis: every card reaches every other at the
+same rate, so it follows the algorithm, not a topology.
 
 Multi-host: the same program under ``jax.distributed.initialize`` — the mesh
 just spans more devices; nothing else changes.
@@ -68,7 +70,7 @@ def make_sharded_mv_core(dev_key: DeviceServerKey, mesh: Mesh,
 
     (key_args, vlut, weights, leader, rot_cts) -> outputs, with BOTH batch
     axes sharded: each device rotates its slice of the deduped rotation
-    batch, the accumulators are all-gathered over ICI (R x (k+1) x N int32
+    batch, the accumulators are all-gathered (R x (k+1) x N int32
     <= a few MB per level), and each device derives its slice of the op
     outputs from the replicated accumulators.  Rotation and op widths must
     be multiples of the mesh size (compile with min_bucket >= mesh size).
@@ -91,7 +93,7 @@ def make_sharded_mv_core(dev_key: DeviceServerKey, mesh: Mesh,
     def sharded(key, vlut, weights, leader, rot_cts):
         accs_local = rotate(key, vlut, rot_cts)          # [R/D, ...]
         # leaders index the FULL rotation batch: gather it (tiled concat
-        # restores global row order) — a few MB per level over ICI
+        # restores global row order) — a few MB per level
         accs = jax.lax.all_gather(accs_local, BATCH_AXIS, tiled=True)
         return finish(key, accs, weights, leader, positions)
 

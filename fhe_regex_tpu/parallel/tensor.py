@@ -5,14 +5,14 @@ Batch parallelism (mesh.py) is the main throughput lever; this module adds
 the orthogonal axis for latency-critical small batches: the external
 product's gadget-decomposition rows — (k+1)*l GGSW row polynomials per CMUX
 step — are sharded across devices, each device contracts its row slice, and
-a per-step ``psum`` over ICI rebuilds the accumulator update.  This is the
+a per-step ``psum`` between devices rebuilds the accumulator update.  This is the
 matmul-formulation counterpart of sharding NTT butterfly stages with
 all-to-alls: the collective moves [B, k+1, N] partial sums instead of
 butterfly wavefronts.
 
 The accumulator (and stage 1: rotation + decomposition) is replicated —
-cheap VPU work; the MXU contraction (all the FLOPs) and the bootstrap-key
-residency (the HBM pressure) divide by the mesh size.
+cheap elementwise work; the contraction (all the MACs) and the
+bootstrap-key residency (the HBM pressure) divide by the mesh size.
 
 Decrypted results are bit-exact vs the single-device path: the row split
 re-associates exact integer sums only.

@@ -1,4 +1,4 @@
-"""TFHE parameter sets for the TPU-native build.
+"""TFHE parameter sets.
 
 The reference (RKlompUU/fhe-regex) hardcodes tfhe-rs 0.2.0's
 ``PARAM_MESSAGE_2_CARRY_2`` (reference: src/regex/ciphertext.rs:42-45) — a
@@ -7,12 +7,14 @@ block, and 4 radix blocks per ASCII byte (block_size=2 / num_blocks=4
 duplicated at ciphertext.rs:13-14; we promote all of it into one explicit
 config object, see SURVEY.md §5 "Config / flag system").
 
-TPU-native primary set
-----------------------
-TPUs have no native 64-bit integer datapath; the idiomatic torus is
-**32-bit**, stored as ``int32`` with two's-complement wraparound == arithmetic
-mod 2^32 (XLA defines integer overflow as wraparound). We therefore define
-``TPU_MESSAGE_2_CARRY_2``: the same algebraic shape as the reference set
+32-bit primary set
+------------------
+The primary torus is **32-bit**, stored as ``int32`` with two's-complement
+wraparound == arithmetic mod 2^32 (XLA defines integer overflow as
+wraparound), so every device op is a native 32-bit integer op.  (The set's
+name ``TPU_MESSAGE_2_CARRY_2`` dates from the machine the system was first
+built for; it is an identifier, not a claim about speed.)  It has the same
+algebraic shape as the reference set
 (n=742, N=2048, k=1, 2+2 bit blocks, padding bit) with noise chosen at the
 same *relative* (sigma/q) operating points, so security and decryption-margin
 structure carry over.  Correctness is defined — per BASELINE.json — on
@@ -36,8 +38,8 @@ Noise rationale (32-bit torus, q = 2^32, Delta = q/32 = 2^27):
     discretization unit at q=2^32; we use sigma_abs ~= 3.2 (sigma/q=2^-30.4),
     which is *more* relative noise, hence at least as secure for k*N=2048.
   - pbs decomposition: base_log=7, level=3  (digits in (-64, 64] — chosen so
-    digit x limb products are exactly representable on the MXU, see
-    ops/pbs_pallas.py).  Decomp error std ~2^18.7 over the n CMUXs: negligible
+    digits fit int8 and digit x 8-bit-limb dot sums are exact in int32, see
+    ops/pbs.py prepare_bsk_int8).  Decomp error std ~2^18.7 over the n CMUXs: negligible
     vs the modulus-switch floor (~2^22.5), same structure as the reference.
   - ks  decomposition: base_log=3, level=5 (as the reference set).
 
@@ -126,71 +128,7 @@ class Params:
 
     # ---------------- noise budget model ----------------
 
-    def fft_noise_std(self, plan: tuple) -> float:
-        """Accumulated FFT-backend error std over a full blind rotation
-        (torus units), for a limb plan (low-to-high bit widths; see
-        ops/pbs_fft.py).
-
-        Per-row-conv f32 pipeline error std, measured at N=2048 with
-        full-magnitude limbs: ~10 for 16-bit limbs (worst 48 over 300+
-        trials incl. adversarial digits), scaling with limb magnitude
-        (2^(bits-16)) and ~linearly with N (conservative).  Limbs of <= 8
-        bits round exactly (measured worst 0.25 < 0.5) and contribute
-        zero.  Each noisy limb adds sigma_eps * 2^weight per output
-        coefficient per CMUX step; n steps x (k+1)l rows accumulate as a
-        sqrt.
-        """
-        n, N = self.lwe_dimension, self.polynomial_size
-        rows = (self.glwe_dimension + 1) * self.pbs_level
-        var, w = 0.0, 0
-        for bits in plan:
-            if bits > 8:
-                sigma_eps = 10.0 * (2.0 ** (bits - 16)) * (N / 2048.0)
-                # analytic f32-ulp floor (advisor, round 2): true conv
-                # values reach 64 * 2^(bits-1) * N, where one f32 ulp is
-                # magnitude * 2^-23 — near the mod-2^32 fold boundary this
-                # exceeds the empirically measured error (ulp 256 vs
-                # worst 48 at 16-bit/N=2048), so model the final-rounding
-                # tail explicitly: std ulp/sqrt(12), in quadrature.
-                ulp = 64.0 * (2.0 ** (bits - 1)) * N * (2.0 ** -23)
-                sigma_ulp = ulp / math.sqrt(12.0)
-                var += n * rows * ((sigma_eps ** 2 + sigma_ulp ** 2)
-                                   * (2.0 ** w) ** 2)
-            w += bits
-        return math.sqrt(var)
-
-    def bsk_round_var(self, mask_limbs: int = 0, body_limbs: int = 0) -> float:
-        """Blind-rotation variance added by rounding bootstrap-key
-        polynomials to multiples of 256^limbs (int8-limb dropping in the
-        MXU kernels, ops/pbs_pallas.py prepare_bsk_*).
-
-        Rounding a BODY poly by delta (uniform in a 2^{8m} unit) perturbs
-        the external-product phase by d (*) delta directly:
-        N * (B^2/12) * (u^2/12) per row-step.  Rounding a MASK poly j
-        perturbs it by d (*) delta (*) s_j — the GLWE-key convolution
-        amplifies the variance by N/2 (binary key, density 1/2); this is
-        the sqrt(N/2) std amplification measured on hardware in round 2
-        (prepare_bsk_pallas docstring).  Accumulated over the n steps and
-        the (k+1)*l decomposition rows.
-        """
-        if not (mask_limbs or body_limbs):
-            return 0.0
-        n, N, k, l = (self.lwe_dimension, self.polynomial_size,
-                      self.glwe_dimension, self.pbs_level)
-        B2 = (float(self.pbs_base) ** 2) / 12.0
-        rows = (k + 1) * l
-        var = 0.0
-        if body_limbs:
-            u2 = (2.0 ** (8 * body_limbs)) ** 2 / 12.0
-            var += n * rows * N * B2 * u2
-        if mask_limbs:
-            u2 = (2.0 ** (8 * mask_limbs)) ** 2 / 12.0
-            var += n * rows * k * N * B2 * u2 * (N / 2.0)
-        return var
-
-    def noise_budget_report(self, mv_norm2: "int | None" = None,
-                            fft_plan: "tuple | None" = None,
-                            bsk_drop: "tuple[int, int] | None" = None) -> dict:
+    def noise_budget_report(self, mv_norm2: "int | None" = None) -> dict:
         """Analytic per-PBS noise estimate (variances in torus^2 units).
 
         Mirrors the standard TFHE noise formulas; used by tests to assert the
@@ -217,10 +155,6 @@ class Params:
         eps_dec = q / (2.0 * (B ** l))                 # gadget remainder
         var_dec = n * (1 + k * N) * (eps_dec ** 2) / 12.0
         var_br = var_bsk + var_dec
-        if fft_plan is not None:       # FFT-backend rounding envelope
-            var_br += self.fft_noise_std(tuple(fft_plan)) ** 2
-        if bsk_drop is not None:       # key-limb rounding (mask, body)
-            var_br += self.bsk_round_var(*bsk_drop)
 
         # Keyswitch kN -> n
         eps_ks = q / (2.0 * (Bks ** lks))
@@ -265,19 +199,18 @@ class Params:
         }
 
     def p_fail_circuit(self, pbs_count: int,
-                       mv_norm2: "int | None" = None,
-                       bsk_drop: "tuple | None" = None) -> float:
+                       mv_norm2: "int | None" = None) -> float:
         """Upper bound on whole-circuit failure: 1 - (1-p)^pbs_count.
 
         Every bootstrap in a circuit must land in the correct LUT slot for
         the decrypted result to be exact; a union bound over ``pbs_count``
         worst-case-input bootstraps gives the per-run contract surfaced in
         ``Executor.run(profile=True)`` and serve.py ``/stats``.  Pass the
-        circuit's worst mv factor norm and the backend's active key-limb
-        drop so the bound reflects the engine's REAL operating point.
+        circuit's worst mv factor norm so the bound reflects the engine's
+        REAL operating point.
         """
         p = self.noise_budget_report(
-            mv_norm2=mv_norm2, bsk_drop=bsk_drop)["p_fail_per_pbs"]
+            mv_norm2=mv_norm2)["p_fail_per_pbs"]
         if p * pbs_count < 1e-12:
             return p * pbs_count          # exact to f64 in this regime
         return 1.0 - (1.0 - p) ** pbs_count
@@ -305,12 +238,12 @@ def log2_p_fail_sigma(k_sigma: float) -> float:
     return (-x * x - math.log(x * math.sqrt(math.pi))) / math.log(2.0)
 
 
-# Primary TPU parameter set (analog of tfhe-rs 0.2 PARAM_MESSAGE_2_CARRY_2,
+# Primary parameter set (analog of tfhe-rs 0.2 PARAM_MESSAGE_2_CARRY_2,
 # reference src/regex/ciphertext.rs:44, re-based onto a 32-bit torus).
 TPU_MESSAGE_2_CARRY_2 = Params(name="TPU_MESSAGE_2_CARRY_2")
 
-# The reference's 64-bit set — executable on device via the jnp64/pallas64
-# backends (ops/pbs64.py, ops/pbs_pallas.py).
+# The reference's 64-bit set — executable on device via the jnp64 backend
+# (ops/pbs64.py).
 #
 # GROUND-TRUTH VERIFIED (round 4): every value below is re-verified against
 # the reference's own serialized key fixture
@@ -340,10 +273,9 @@ TPU_MESSAGE_2_CARRY_2 = Params(name="TPU_MESSAGE_2_CARRY_2")
 #
 # Use this set for parity/benchmarking (trivial or measured-risk runs);
 # the STATED 64-bit production contract is TPU64_MESSAGE_2_CARRY_2 below
-# (same algebraic shape, >=5-sigma analytic margin, test-asserted; all 7
-# driver configs were run on hardware at TPU64 with REAL encrypt_str
-# content and decrypted correctly — docs/BENCHMARKS.md round-3 e2e table,
-# TPU64 column, measured 2026-08-20).
+# (same algebraic shape, >=5-sigma analytic margin, test-asserted;
+# chip_smoke.py runs BASELINE.json configs at this set with REAL encrypt_str content
+# and checks each decrypted result against the plaintext oracle).
 REF_MESSAGE_2_CARRY_2_64 = Params(
     name="REF_MESSAGE_2_CARRY_2_64",
     torus_bits=64,

@@ -41,7 +41,7 @@ def test_count_fuzz(seed, keys):
     rng = random.Random(6000 + seed)
     pattern = _pattern(rng)
     content = "".join(rng.choice("abcde") for _ in range(rng.randint(1, 8)))
-    from test_oracle_fuzz import OracleBudgetExceeded
+    from fhe_regex_tpu.regex.oracle import OracleBudgetExceeded
     try:
         parse(pattern)
         want = sum(_oracle_positions(content, pattern))

@@ -111,10 +111,10 @@ def test_executor_for_reuses_compiled_circuit(keys):
 
 
 def test_default_fuse_size_cap(monkeypatch):
-    """Megarun default: on for TPU below FUSE_MAX_PBS, off above, env forces.
+    """Megarun default: FUSE_LEVELS below FUSE_MAX_PBS, off above, env forces.
 
-    The cap exists because on big circuits fusing measured zero warm win
-    but +170 s cold XLA compile (docs/ROADMAP.md, round 3)."""
+    The cap exists because the fused program grows with the circuit, and
+    with it the cold XLA compile."""
     from fhe_regex_tpu.regex import executor as ex_mod
 
     class FakeCircuit:
@@ -128,11 +128,11 @@ def test_default_fuse_size_cap(monkeypatch):
     big = FakeCircuit(ex_mod.FUSE_MAX_PBS + 1)
 
     monkeypatch.delenv("FHE_REGEX_FUSE_LEVELS", raising=False)
-    monkeypatch.setattr("jax.default_backend", lambda: "tpu")
+    monkeypatch.setattr(ex_mod, "FUSE_LEVELS", True)
     assert ex_mod.default_fuse(small) is True
     assert ex_mod.default_fuse(big) is False
 
-    monkeypatch.setattr("jax.default_backend", lambda: "cpu")
+    monkeypatch.setattr(ex_mod, "FUSE_LEVELS", False)
     assert ex_mod.default_fuse(small) is False
 
     monkeypatch.setenv("FHE_REGEX_FUSE_LEVELS", "1")

@@ -169,7 +169,7 @@ def test_real_encryption_roundtrip(noisy_keys):
 
 
 def test_executor_profile_stats(keys):
-    """run(profile=True) records per-level width/active/seconds (the TPU-side
+    """run(profile=True) records per-level width/active/seconds (the device-side
     analog of the reference's ct-op logging, SURVEY.md §5)."""
     from fhe_regex_tpu.ops.pbs import prepare_server_key
     from fhe_regex_tpu.regex.engine import compile_match

@@ -21,7 +21,7 @@ from fhe_regex_tpu.params import TEST_PARAMS
 from fhe_regex_tpu.regex.engine import BranchBudgetExceeded
 from fhe_regex_tpu.regex.parser import parse
 
-from test_oracle_fuzz import OracleBudgetExceeded, oracle_match
+from fhe_regex_tpu.regex.oracle import OracleBudgetExceeded, oracle_match
 
 BUDGET = 200_000
 

@@ -1,6 +1,6 @@
-"""Two-shape level-width scheme (TPU: {SMALL_LEVEL_BATCH, MAX_LEVEL_BATCH})
-compiles and still decrypts correctly — exercised on CPU with the same
-min_bucket the TPU path uses."""
+"""Two-shape level-width scheme ({SMALL_LEVEL_BATCH, MAX_LEVEL_BATCH}, used
+when the minimum bucket is SMALL_LEVEL_BATCH) compiles and still decrypts
+correctly."""
 
 import numpy as np
 

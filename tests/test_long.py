@@ -17,7 +17,7 @@ from fhe_regex_tpu.regex import parser as P
 from fhe_regex_tpu.regex.engine import has_anchor, max_match_span
 from fhe_regex_tpu.regex.parser import parse
 
-from test_oracle_fuzz import OracleBudgetExceeded, oracle_match
+from fhe_regex_tpu.regex.oracle import OracleBudgetExceeded, oracle_match
 
 
 SPANS = [
@@ -156,7 +156,7 @@ def test_long_64bit():
 
 def test_long_fixed_launch_shapes(keys, monkeypatch):
     """The OR reduction must only launch the executor's fixed shapes (every
-    new shape is a minutes-long remote Mosaic compile on the TPU path)."""
+    new shape is one more compiled executable)."""
     import fhe_regex_tpu as F
     from fhe_regex_tpu.regex import executor as X
 

@@ -132,7 +132,7 @@ def test_multi_budget_is_per_pattern(engine):
 
 def _oracle_positions(content: str, pattern: str):
     """Plaintext per-start-position truth, via the fuzz oracle's evaluator."""
-    from test_oracle_fuzz import _oracle_branches
+    from fhe_regex_tpu.regex.oracle import _oracle_branches
     from fhe_regex_tpu.regex.parser import parse as _parse
     ast = _parse(pattern)
     data = content.encode("ascii")

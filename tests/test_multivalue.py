@@ -440,18 +440,17 @@ def test_multivalue_run_many_sharded(keys):
     assert [decrypt(ck, res[i]) for i in range(4)] == [1, 0, 1, 0]
 
 
-def test_multivalue_on_pallas64_bg():
-    """mv plans through the batch-grid 64-bit backend (the round-4 default
-    on TPU — the windowed/serving auto-mv path must not reject it)."""
+@pytest.mark.parametrize("backend", ["int8", "jnp", "jnp64"])
+def test_multivalue_on_backend(backend):
+    """mv plans through every backend: the windowed/serving auto-mv path
+    must run on whichever one is a width's default."""
     from fhe_regex_tpu import decrypt, has_match, trivial_encrypt_str
     from fhe_regex_tpu.crypto.keys import gen_keys
     from fhe_regex_tpu.params import TEST_PARAMS_64
 
-    ck, sk = gen_keys(TEST_PARAMS_64, seed=17)
-    ct = trivial_encrypt_str(TEST_PARAMS_64, "bd")
-    res = has_match(sk, ct, "/^[a-d]d$/", backend="pallas64-bg",
-                    multivalue=True)
-    assert decrypt(ck, res) == 1
-    res = has_match(sk, trivial_encrypt_str(TEST_PARAMS_64, "xz"),
-                    "/^[a-d]d$/", backend="pallas64-bg", multivalue=True)
-    assert decrypt(ck, res) == 0
+    P = TEST_PARAMS_64 if backend == "jnp64" else TEST_PARAMS
+    ck, sk = gen_keys(P, seed=17)
+    for content, want in (("bd", 1), ("xz", 0)):
+        res = has_match(sk, trivial_encrypt_str(P, content), "/^[a-d]d$/",
+                        backend=backend, multivalue=True)
+        assert decrypt(ck, res) == want, content

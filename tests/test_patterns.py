@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from fhe_regex_tpu import decrypt, trivial_encrypt_str
-from fhe_regex_tpu.models.patterns import DRIVER_CONFIGS, CompiledPattern
+from fhe_regex_tpu.models.patterns import BASELINE_CONFIGS, CompiledPattern
 from fhe_regex_tpu.ops.pbs import prepare_server_key
 from fhe_regex_tpu.params import TEST_PARAMS
 from fhe_regex_tpu.regex.engine import BranchBudgetExceeded
@@ -42,5 +42,5 @@ def test_compiled_pattern_budget():
 
 
 def test_driver_configs_parse():
-    for cfg in DRIVER_CONFIGS:
+    for cfg in BASELINE_CONFIGS:
         CompiledPattern(cfg["pattern"], params=TEST_PARAMS)

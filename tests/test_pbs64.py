@@ -1,7 +1,7 @@
 """64-bit-torus DEVICE path (ops/pbs64) vs the NumPy golden model.
 
 The reference's tfhe-rs stack runs a 64-bit torus (SURVEY.md N1); here the
-full PBS executes on device as 2 x int32 limb pairs with int8-limb MXU
+full PBS executes on device as 2 x int32 limb pairs with int8-limb
 einsums.  Zero-noise params make every comparison bit-exact.
 """
 
@@ -167,30 +167,6 @@ def test_has_match_64bit_sharded(keys64):
     assert decrypt(ck, has_match(sk, ct2, "/a+bc/", mesh=mesh, fold="tree")) == 0
 
 
-def test_fused64_bitexact_vs_jnp64(keys64):
-    """Single-launch 64-bit blind rotation (pallas64) == jnp64 limb path."""
-    from fhe_regex_tpu.ops.pbs import make_pbs_fn, prepare_server_key
-    from fhe_regex_tpu.regex.executor import _limbs_to_np, _np_to_limbs
-
-    ck, sk = keys64
-    f = lambda x: (5 * x + 2) % 16
-    msgs = [0, 1, 5, 7, 12, 15, 3, 9]
-    lut = make_lut_poly(P64, f)
-    luts = jnp.asarray(_np_to_limbs(lut[None], 64))
-    idx = jnp.zeros(len(msgs), jnp.int32)
-    cts = np.stack([lwe.encrypt_lwe(P64, ck.lwe_key, m, ck.rng) for m in msgs])
-    ctsj = jnp.asarray(_np_to_limbs(cts, 64))
-
-    ref = make_pbs_fn(prepare_server_key(P64, sk, "jnp64"))(luts, idx, ctsj)
-    for stack in (False, True):   # per-pair K=128 kernel / weight-class deep-K
-        fus = make_pbs_fn(prepare_server_key(P64, sk, "pallas64",
-                                             stack_rows=stack))(luts, idx, ctsj)
-        assert np.array_equal(np.asarray(ref), np.asarray(fus)), stack
-        o = _limbs_to_np(np.asarray(fus), 64)
-        got = [lwe.decrypt_lwe(P64, ck.lwe_key, o[i]) for i in range(len(msgs))]
-        assert got == [f(m) % 16 for m in msgs]
-
-
 def test_has_match_many_64bit(keys64):
     """Serving path (run_many limb-pair slabs) at the reference width."""
     from fhe_regex_tpu import decrypt, has_match_many, trivial_encrypt_str
@@ -213,102 +189,3 @@ def test_multipattern_64bit(keys64):
     res = has_match_patterns(sk, ct, ["/b/", "/x/", "/^abc$/"])
     assert res.dtype == np.uint64 and res.shape[0] == 3
     assert [decrypt(ck, r) for r in res] == [1, 0, 1]
-
-
-def test_fused64_bg_bitexact_vs_jnp64(keys64):
-    """Batch-grid 64-bit blind rotation (pallas64-bg, VERDICT r3 #2) with
-    no limb drop == jnp64 limb path, bit-exact, at NB=1 and NB>1."""
-    from fhe_regex_tpu.ops.pbs import make_pbs_fn, prepare_server_key
-    from fhe_regex_tpu.regex.executor import _limbs_to_np, _np_to_limbs
-
-    ck, sk = keys64
-    f = lambda x: (5 * x + 2) % 16
-    msgs = [0, 1, 5, 7, 12, 15, 3, 9] * 2        # B=16 -> tb=16, NB=1
-    lut = make_lut_poly(P64, f)
-    luts = jnp.asarray(_np_to_limbs(lut[None], 64))
-    idx = jnp.zeros(len(msgs), jnp.int32)
-    cts = np.stack([lwe.encrypt_lwe(P64, ck.lwe_key, m, ck.rng) for m in msgs])
-    ctsj = jnp.asarray(_np_to_limbs(cts, 64))
-
-    ref = make_pbs_fn(prepare_server_key(P64, sk, "jnp64"))(luts, idx, ctsj)
-    dev = prepare_server_key(P64, sk, "pallas64-bg")
-    assert dev.drop64 == (0, 0)      # zero-noise set: exactness preserved
-    got = make_pbs_fn(dev)(luts, idx, ctsj)
-    assert np.array_equal(np.asarray(ref), np.asarray(got))
-
-    # NB > 1: force two blocks through the explicit-DMA write pipeline
-    from fhe_regex_tpu.ops import pbs_pallas as pp
-    ms = pbs64.mod_switch64(P64, ctsj[..., 0], ctsj[..., 1])
-    one = pp.blind_rotate_fused64_bg(P64, dev.bsk_raw64, luts[..., 0],
-                                     luts[..., 1], idx, ms, (0, 0), tb=16)
-    two = pp.blind_rotate_fused64_bg(P64, dev.bsk_raw64, luts[..., 0],
-                                     luts[..., 1], idx, ms, (0, 0), tb=8)
-    assert np.array_equal(np.asarray(one[0]), np.asarray(two[0]))
-    assert np.array_equal(np.asarray(one[1]), np.asarray(two[1]))
-
-
-def test_fused64_bg_limb_drop_decrypts():
-    """Key-limb dropping (mask=1, body=1) at a NOISY small 64-bit set:
-    the rounded-key kernel must still decrypt every LUT output correctly
-    (the added noise is bounded by Params.bsk_round_var, orders below
-    delta/2 here)."""
-    import dataclasses
-    from fhe_regex_tpu.ops.pbs import make_pbs_fn, prepare_server_key
-    from fhe_regex_tpu.regex.executor import _limbs_to_np, _np_to_limbs
-    from fhe_regex_tpu.params import TEST_PARAMS_64
-
-    P = dataclasses.replace(TEST_PARAMS_64, name="T64N",
-                            lwe_noise_std=float(1 << 20),
-                            glwe_noise_std=float(1 << 18))
-    ck, sk = gen_keys(P, seed=21)
-    f = lambda x: (3 * x + 1) % 16
-    msgs = [0, 2, 5, 7, 11, 15, 8, 4]
-    lut = make_lut_poly(P, f)
-    luts = jnp.asarray(_np_to_limbs(lut[None], 64))
-    idx = jnp.zeros(len(msgs), jnp.int32)
-    cts = np.stack([lwe.encrypt_lwe(P, ck.lwe_key, m, ck.rng) for m in msgs])
-    ctsj = jnp.asarray(_np_to_limbs(cts, 64))
-
-    dev = prepare_server_key(P, sk, "pallas64-bg", drop_limbs64=(1, 1))
-    out = make_pbs_fn(dev)(luts, idx, ctsj)
-    o = _limbs_to_np(np.asarray(out), 64)
-    got = [lwe.decrypt_lwe(P, ck.lwe_key, o[i]) for i in range(len(msgs))]
-    assert got == [f(m) % 16 for m in msgs]
-
-
-def test_drop64_gate_and_defaults():
-    """default_drop64 picks the mv-compatible (1,2) at TPU64 (7.62 sigma
-    classic / 7.51 at mv-12, p<=2^-40), (0,0) for zero-noise sets;
-    (2,2) is the classic-only env opt-in; _gate_drop64 refuses
-    margin-breaking drops."""
-    from fhe_regex_tpu.ops.pbs import default_drop64, _gate_drop64
-    from fhe_regex_tpu.params import (TEST_PARAMS_64,
-                                      TPU64_MESSAGE_2_CARRY_2)
-
-    # (1,2): the deepest drop that ALSO keeps the worst production mv
-    # factor (norm^2=12) >= 5 sigma — (2,2)'s 2-limb MASK drop leaves
-    # mv-12 at 4.95 sigma (classic-only workloads opt into (2,2) via env)
-    assert default_drop64(TPU64_MESSAGE_2_CARRY_2) == (1, 2)
-    assert default_drop64(TEST_PARAMS_64) == (0, 0)
-    monkey_env = dict(__import__("os").environ)
-    try:
-        __import__("os").environ["FHE_REGEX_DROP64"] = "2,2"
-        assert default_drop64(TPU64_MESSAGE_2_CARRY_2) == (2, 2)
-    finally:
-        __import__("os").environ.clear()
-        __import__("os").environ.update(monkey_env)
-    with pytest.raises(ValueError, match="sigma"):
-        _gate_drop64(TPU64_MESSAGE_2_CARRY_2, (3, 3))
-    _gate_drop64(TPU64_MESSAGE_2_CARRY_2, (2, 2))   # passes
-
-
-def test_drop64_gate_refuses_garbage_even_on_unsafe_sets():
-    """REF64 is already sub-5-sigma (bench/parity use) so the margin gate
-    can't fire — but a drop leaving <1 sigma means certainly-wrong
-    results and must be refused regardless."""
-    from fhe_regex_tpu.ops.pbs import _gate_drop64
-    from fhe_regex_tpu.params import REF_MESSAGE_2_CARRY_2_64
-
-    with pytest.raises(ValueError, match="garbage"):
-        _gate_drop64(REF_MESSAGE_2_CARRY_2_64, (3, 3))
-    _gate_drop64(REF_MESSAGE_2_CARRY_2_64, (1, 1))   # risky-but-sane: allowed

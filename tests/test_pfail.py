@@ -113,42 +113,3 @@ def test_zero_noise_test_sets_never_warn():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         warn_if_unsafe(TEST_PARAMS, "test")
-
-
-def test_bsk_limb_drop_margins():
-    """Pin the key-limb-rounding analysis (Params.bsk_round_var):
-    at 32 bits even the body-only drop fails the 5-sigma gate (the
-    rounding term dwarfs the tiny glwe noise) — the VERDICT-r3-#3
-    negative result; at TPU64 the keyswitch-key noise floor makes
-    (mask=2, body=2) free (7.23 sigma, p_fail still <= 2^-40)."""
-    r32 = TPU_MESSAGE_2_CARRY_2.noise_budget_report(bsk_drop=(0, 1))
-    assert r32["sigma_margin"] < MIN_SIGMA_MARGIN        # negative result
-    assert 1.0 < r32["sigma_margin"] < 2.5               # measured 1.60
-    r64 = TPU64_MESSAGE_2_CARRY_2.noise_budget_report(bsk_drop=(2, 2))
-    assert r64["sigma_margin"] >= MIN_SIGMA_MARGIN
-    assert r64["log2_p_fail_per_pbs"] <= -40.0
-    # one step further breaks it — (2,2) is the edge of the plateau
-    assert (TPU64_MESSAGE_2_CARRY_2.noise_budget_report(
-        bsk_drop=(0, 3))["sigma_margin"] < MIN_SIGMA_MARGIN)
-    assert (TPU64_MESSAGE_2_CARRY_2.noise_budget_report(
-        bsk_drop=(3, 3))["sigma_margin"] < 1.0)
-
-
-def test_default_drop_keeps_the_mv_margin():
-    """The engine-wide 64-bit drop default must serve EVERY path: classic
-    contract (>=5 sigma, p<=2^-40) AND the worst production multivalue
-    factor (norm^2=12) at >=5 sigma.  (2,2) fails the latter (4.95) —
-    its mask rounding rides the N/2 key convolution that mv amplifies."""
-    from fhe_regex_tpu.ops.pbs import WORST_PRODUCTION_MV_NORM2, default_drop64
-
-    d = default_drop64(TPU64_MESSAGE_2_CARRY_2)
-    rep = TPU64_MESSAGE_2_CARRY_2.noise_budget_report(bsk_drop=d)
-    mv = TPU64_MESSAGE_2_CARRY_2.noise_budget_report(
-        bsk_drop=d, mv_norm2=WORST_PRODUCTION_MV_NORM2)
-    assert rep["sigma_margin"] >= MIN_SIGMA_MARGIN
-    assert rep["log2_p_fail_per_pbs"] <= -40.0
-    assert mv["sigma_margin"] >= MIN_SIGMA_MARGIN
-    # and the classic-only point (2,2) is exactly the one mv rejects
-    mv22 = TPU64_MESSAGE_2_CARRY_2.noise_budget_report(
-        bsk_drop=(2, 2), mv_norm2=WORST_PRODUCTION_MV_NORM2)
-    assert mv22["sigma_margin"] < MIN_SIGMA_MARGIN

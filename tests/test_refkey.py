@@ -10,8 +10,7 @@ test, a full programmable bootstrap — run under the reference's actual
 secret keys.
 
 The full 25-vector end-to-end run under the reference's keys is a hardware
-job (benchmarks/refkey_vectors.py); its results are recorded in
-docs/BENCHMARKS.md.
+job (benchmarks/refkey_vectors.py).
 """
 
 import dataclasses

@@ -1,6 +1,6 @@
 """64-bit-torus golden-model validation (reference tfhe-rs torus width, N1).
 
-The primary TPU execution path is the 32-bit torus; this suite proves the
+The primary execution path is the 32-bit torus; this suite proves the
 crypto layer is torus-width-generic by running the full golden pipeline at
 64 bits (the reference's width) on small parameters.
 """

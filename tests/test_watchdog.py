@@ -1,5 +1,5 @@
-"""Dispatch watchdog (VERDICT r3 #8): the round-3 1694-s anomaly must
-self-diagnose if it recurs.  Unit tests on the EMA detector plus the
+"""Dispatch watchdog: an anomalous launch (here an artificial 1694-s
+stall) must self-diagnose.  Unit tests on the EMA detector plus the
 integration fact that Executor.run feeds it."""
 
 import logging
